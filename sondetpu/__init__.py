@@ -1,10 +1,10 @@
-"""sondetpu — a TPU-native radiosonde decoding framework.
+"""sondetpu — an accelerator-native radiosonde decoding framework.
 
 A from-scratch re-design of the capabilities of the SDR++ radiosonde decoder
 plugin (dbdexter-dev/sdrpp_radiosonde) as a massively channel-parallel JAX/XLA
 pipeline: wideband IQ is channelized, FM/AFSK-demodulated, symbol-timed,
 frame-synced, FEC-decoded and parsed into telemetry for thousands of
-concurrent sonde channels on TPU device meshes.
+concurrent sonde channels on accelerator device meshes.
 
 Layer map (vs. reference /root/reference, see SURVEY.md):
   L2 channelization/demod  -> sondetpu.dsp      (ref: SDR++ core VFO/FM/resampler)

@@ -53,7 +53,9 @@ class FrameworkConfig:
     wide_bins: int = 0              # PFB bin count (0 = take CLI --bins)
     block_len: int = 48000
     sync_threshold: float = 0.6
-    use_pallas: bool = False
+    # the dual-tone front-end kernel (PipelineConfig.use_pallas): null =
+    # wherever it compiles, false = never, true = required
+    use_pallas: Optional[bool] = None
     # cs16/cs8 inputs: upload raw integer planes and dequantize ON DEVICE
     # (2x/4x less host->device traffic); no effect on float formats
     device_dequant: bool = False

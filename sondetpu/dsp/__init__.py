@@ -1,6 +1,6 @@
 """Batched DSP primitives: filtering, demodulation, resampling, channelization.
 
-TPU-native replacements for the SDR++ core DSP blocks the reference wires up
+Accelerator-native replacements for the SDR++ core DSP blocks the reference wires up
 (SURVEY.md §2.2: dsp::demod::FM, dsp::multirate::RationalResampler, VFO
 channel extraction) plus the shared front-end of the sondedump decoders
 (S0: matched filter, AGC). Everything operates on a batch/channel axis so

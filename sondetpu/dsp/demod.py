@@ -1,6 +1,6 @@
 """Analog demodulators: FM quadrature discriminator, AFSK tone discriminator.
 
-TPU-native equivalent of SDR++'s ``dsp::demod::FM`` (consumed at reference
+Accelerator-native equivalent of SDR++'s ``dsp::demod::FM`` (consumed at reference
 src/main.cpp:57 with deviation = bandwidth/2) and of sondedump's AFSK front
 end for iMet-4/SRS-C50 (SURVEY.md S5/S6). Batched over a channel axis; the
 one-sample carry across blocks makes chunked demodulation exactly equal to
@@ -67,9 +67,8 @@ def afsk_discriminate(audio: jax.Array, fs: float, f_mark: float, f_space: float
     box = jnp.ones(win, dtype=jnp.float32) / win
 
     def tone_energy(f):
-        # real LO planes (framework convention: no complex64 in compiled
-        # programs — several PJRT backends, incl. the pinned TPU, cannot
-        # execute them; cos/-sin mixing is mathematically identical)
+        # real LO planes (framework convention: I/Q planes rather than
+        # complex64; cos/-sin mixing is mathematically identical)
         w = 2.0 * jnp.pi * f
         ci = audio * jnp.cos(w * t)
         cq = -audio * jnp.sin(w * t)

@@ -7,9 +7,8 @@ Gaussian) and baked as constants into the jitted pipeline; streaming
 application keeps a per-channel tail of ``ntaps-1`` samples so chunked
 filtering is exactly equal to filtering the unchunked stream.
 
-The convolution itself is expressed as a [block, ntaps] gather-free sliding
-window contraction that XLA lowers to MXU-friendly ops; the Pallas fused
-variant lives in sondetpu.pallas.fir_kernel.
+The convolution itself is a batched grouped 1-D convolution (XLA hands it
+to cuDNN on a GPU) that never materializes the sliding windows.
 """
 
 from __future__ import annotations
@@ -87,7 +86,7 @@ def _sliding_windows(x: jax.Array, ntaps: int) -> jax.Array:
     """[batch, n + ntaps - 1] -> [batch, n, ntaps] sliding windows.
 
     Built from ``ntaps`` shifted slices; XLA fuses these into a single
-    strided read, and the subsequent contraction maps onto the MXU.
+    strided read, and the subsequent contraction is a small matmul.
     """
     n = x.shape[-1] - ntaps + 1
     cols = [jax.lax.dynamic_slice_in_dim(x, k, n, axis=-1) for k in range(ntaps)]
@@ -123,19 +122,14 @@ def _apply_windows(xp: jax.Array, taps: jax.Array, stride: int = 1) -> jax.Array
 def _group_size(channels: int) -> int:
     """Feature-group split for the batched depthwise conv.
 
-    Folding channels into the conv's feature dimension lets XLA tile the
-    batch onto the hardware properly — measured 3x faster than feature=1
-    convs at 2048 channels on v5e. The split rule is MEASURED (v5e, 192k
-    samples, 41 taps, stride 2, bf16):
+    Channels fold into the conv's feature dimension (feature_group_count
+    g) over a batch of N = channels/g rows. The rule was tuned on the
+    accelerator this code was first written for and has not been re-derived
+    on the current one (ROADMAP §C3):
 
-    - batch rows N = channels/g of exactly 8 dominate once channels >= 512
-      (sublane-tile alignment): C=1024 g=128 6.4 ms vs g=256 (N=4) 14.6;
-      C=1280 g=160 11.3 vs g=256 (N=5) 20.7; C=640 g=80 7.5 vs g=128 (N=5)
-      12.0; C=512 g=64 7.2 vs g=128 (N=4) 9.2. g does NOT need to be a
-      power of two — the lane dim pads to 128 multiples either way.
-    - small C prefers the full-lane single-row split: C=256 g=256 4.8 ms
-      vs g=32 (N=8) 10.4.
-    - fallback (C % 8 != 0): largest power-of-two divisor up to 256.
+    - channels <= 256: one row, g = channels;
+    - channels % 8 == 0: N = 8 rows;
+    - otherwise the largest power-of-two divisor up to 256.
     """
     if channels <= 256:
         return channels
@@ -149,20 +143,19 @@ def _group_size(channels: int) -> int:
 
 def _conv1d_mxu(x: jax.Array, kernel: jax.Array, stride: int = 1,
                 block: int = 128) -> jax.Array:
-    """Valid 1-D correlation as two MXU matmuls (blocked Toeplitz).
+    """Valid 1-D correlation as two matmuls (blocked Toeplitz).
 
     Blocking time into windows of ``block`` outputs turns the FIR into
     y_win = A @ H0 + B @ H1 with dense [block, block] / [ntaps-1, block]
-    Toeplitz tap matrices — (block+ntaps-1)/ntaps more FLOPs, but on the
-    systolic array. H columns are strided for fused decimation.
+    Toeplitz tap matrices — (block+ntaps-1)/ntaps more FLOPs, but as
+    matmuls. H columns are strided for fused decimation.
     x: [C, n + ntaps - 1] with kernel pre-reversed (correlation), like
     lax.conv.
 
-    MEASURED (v5e, 2048ch x 192k samples, 41 taps, stride 2): the grouped
-    depthwise conv is memory-bound at ~6 ms/plane and this path is ~11 ms
-    regardless of T or precision — the MXU cannot beat an op whose cost is
-    HBM reads. Kept (with tests) as the documented negative result; the
-    hot path stays on the depthwise conv in _conv1d.
+    A matmul cannot beat an op whose cost is memory reads, and this path
+    lost to the depthwise conv where it was first tried. Kept (with tests)
+    as that negative result (ROADMAP §C4); the hot path stays on the
+    depthwise conv in _conv1d.
     """
     c, ln = x.shape
     ntaps = kernel.shape[0]

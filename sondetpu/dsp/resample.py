@@ -1,6 +1,6 @@
 """Polyphase resampling: integer decimation and rational L/M resampling.
 
-TPU-native equivalent of SDR++'s ``dsp::multirate::RationalResampler``
+Accelerator-native equivalent of SDR++'s ``dsp::multirate::RationalResampler``
 (reference src/main.cpp:60: arbitrary channel bandwidth -> 48 kHz audio).
 The anti-alias/anti-image FIR is designed host-side (windowed sinc) and the
 polyphase application is a batched gather + contraction, jit-friendly with
@@ -78,6 +78,8 @@ def rational_resample(x: jax.Array, up: int, down: int, taps: np.ndarray) -> jax
     pos = i[:, None] + jnp.arange(nph)[None, :]          # [n_out, nph]
     sel = jnp.take(xp, pos, axis=1)                      # [c, n_out, nph]
     coeffs = bank[p][:, ::-1]                  # [n_out, nph] reversed for convolution
+    # a batched dot at the default matmul precision: TF32 for float32
+    # operands on a GPU that has it, float32 on the CPU
     return jnp.einsum("cnj,nj->cn", sel, coeffs)
 
 

@@ -3,11 +3,11 @@
 In the reference, finding a sonde is a human workflow: watch the SDR++
 waterfall, drag a VFO onto the carrier (main.cpp:55-56, snap 1000 Hz), and
 pick the protocol from the type combobox (main.cpp:136-151).  This module
-automates both steps TPU-natively:
+automates both steps on the device:
 
 1. :func:`welch_psd` — averaged periodogram of the wideband block:
    segmented, Hann-windowed, computed with the channelizer's mixed-radix
-   MXU DFT on real I/Q planes (no complex64 in compiled programs, same
+   DFT on real I/Q planes (no complex64 in compiled programs, same
    rule as the rest of the framework).
 2. :func:`detect_carriers` — host-side peak grouping of the PSD into
    candidate carriers (center / bandwidth / SNR over a median noise

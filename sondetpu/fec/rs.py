@@ -3,7 +3,7 @@
 RS41's RS(255,231) FEC (SURVEY.md S1, BASELINE.json:7) re-implemented from
 the textbook algorithms: systematic LFSR encoding, syndrome computation,
 Berlekamp-Massey with fixed 2t iterations (per-batch conditionals as
-``np.where`` masks — the shape a TPU port needs), Chien search evaluated at
+``np.where`` masks — the shape a device port needs), Chien search evaluated at
 every position (dense, no ragged gathers), and Forney error magnitudes
 applied through a root-indicator mask.
 

@@ -1,7 +1,6 @@
 """Device-side Reed-Solomon syndrome check as a GF(2) matmul.
 
-The decode-stage device kernel of BASELINE.json:5 ("Pallas kernels for the
-FIR, correlator and decode stages"). GF(256) syndrome computation
+The decode-stage device step of BASELINE.json:5. GF(256) syndrome computation
 S_i = sum_j c_j * alpha^{deg_j * (fcr + i)} is bit-linear in the received
 bytes: multiplying a symbol by a CONSTANT field element is a linear map over
 GF(2)^8. Expanding each received byte into its 8 bit-planes therefore turns
@@ -9,10 +8,9 @@ the entire syndrome computation into ONE binary matrix product
 
     syndrome_bits[r, 8*nroots] = codeword_bits[r, 8*n] @ W[8*n, 8*nroots]  (mod 2)
 
-with W a constant 0/1 matrix baked from the field tables — an MXU matmul
+with W a constant 0/1 matrix baked from the field tables — one matmul
 instead of the gather-per-symbol formulation a CPU uses (sondedump computes
-syndromes with log/antilog table lookups; TPU gathers are slow, matmuls are
-free). The pipeline uses it to classify every gathered frame as RS-clean or
+syndromes with log/antilog table lookups). The pipeline uses it to classify every gathered frame as RS-clean or
 suspect ON DEVICE, so the host skips FEC entirely for clean frames.
 
 A frame is declared clean only when every syndrome of every interleaved
@@ -68,8 +66,7 @@ def frame_syndrome_matrix(frame_bytes: int, data_start: int, parity_start: int,
                           prim: int = 0x11D) -> np.ndarray:
     """W_full [8*frame_bytes, 8*nroots*interleave]: the interleaved-codeword
     layout baked into one frame-level matrix, so the device check is a single
-    ``frame_bits @ W_full`` with NO strided byte extraction (strided uint8
-    slicing costs more than the matmul on TPU)."""
+    ``frame_bits @ W_full`` with NO strided byte extraction."""
     gf = GF256(prim)
     nrs = (frame_bytes - data_start) // interleave
     n = nrs + nroots
@@ -94,8 +91,10 @@ def rs_clean_flags(frames, rs_layout: dict):
     """frames [..., frame_bytes] uint8/int32 -> clean [...] bool.
 
     True iff every syndrome of every interleaved codeword is zero (the frame
-    needs no RS correction). Pure jnp (XLA lowers the GF(2) product onto the
-    MXU); the Pallas variant lives in sondetpu.pallas.syndrome."""
+    needs no RS correction). Pure jnp: the GF(2) product is a 0/1 float32
+    matmul at the default precision; every product and partial sum is a
+    small integer, exact in TF32 and bf16 alike, so the parity below is
+    exact on any backend."""
     fb = frames.shape[-1]
     w = frame_syndrome_matrix(fb, rs_layout["data_start"],
                               rs_layout["parity_start"], rs_layout["nroots"],

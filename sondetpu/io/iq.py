@@ -1,6 +1,6 @@
 """IQ sources: file readers, format conversion, block framing.
 
-Framework entry point for sample data — the TPU-native replacement for the
+Framework entry point for sample data — the accelerator-native replacement for the
 reference's dependence on the SDR++ host signal path (``sigpath``/VFO stream
 handoff, src/main.cpp:55-60). Supports the common raw-IQ interchange formats
 (cf32, cs16, cs8, cu8) and WAV, converts to complex64, and frames the stream

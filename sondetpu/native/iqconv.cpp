@@ -1,6 +1,6 @@
 // Native IQ sample-format conversion for the host ingest hot loop.
 //
-// TPU-native replacement for the sample conversion the reference delegates to
+// Accelerator-native replacement for the sample conversion the reference delegates to
 // the SDR++ host application's source modules (the plugin itself consumes an
 // already-converted float stream, src/main.cpp:55-60). Converting multi-MS/s
 // int8/int16 interleaved IQ to complex64 is the one host-side per-sample loop
@@ -37,9 +37,9 @@ void iq_cu8_to_cf32(const uint8_t *src, float *dst, size_t n_complex,
 }
 
 // Deinterleave complex64 (interleaved float I,Q) into separate I/Q planes.
-// The per-block host hot loop feeding the device pipeline: the compiled TPU
-// programs take split float32 planes (complex64 execution is not portable
-// across PJRT backends), so every ingested block passes through here.
+// The per-block host hot loop feeding the device pipeline: the compiled
+// programs take split float32 planes, so every ingested block passes
+// through here.
 void iq_c64_to_planes(const float *src, float *dst_i, float *dst_q,
                       size_t n_complex) {
   for (size_t k = 0; k < n_complex; ++k) {

@@ -1,6 +1,6 @@
 // Native streaming IQ reader: background prefetch + format conversion.
 //
-// TPU-native equivalent of the reference's dsp::stream / dsp::block runtime
+// Accelerator-native equivalent of the reference's dsp::stream / dsp::block runtime
 // (SURVEY.md C1/C2: double-buffered SPSC handoff with a worker thread per
 // block). Here one reader thread fills a ring of pre-converted float I/Q
 // plane buffers while the Python driver keeps the device busy — host file

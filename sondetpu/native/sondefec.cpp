@@ -1,7 +1,7 @@
 // Native host-side FEC: batched Reed-Solomon / BCH / CRC16 decode.
 //
 // The reference's entire decode layer is a native C library (sondedump,
-// SURVEY.md §2.3); this framework keeps the DSP on TPU but the per-frame
+// SURVEY.md §2.3); this framework keeps the DSP on the device but the per-frame
 // FEC + integrity checks run on host, and at fleet scale (thousands of
 // channels, hundreds of frames per block) they must be native too. The
 // NumPy implementations in sondetpu/fec/ remain the oracle and fallback;

@@ -1,19 +1,7 @@
-"""Pallas TPU kernels for the hot pipeline stages.
+"""Hand-written accelerator kernels.
 
-BASELINE.json:5 names the FIR, correlator and demod stages as the Pallas
-targets. The fused front-end kernel (FM discriminator + DC removal +
-matched FIR in one VMEM-resident pass) removes two HBM round-trips between
-the stages XLA would otherwise materialize; the correlator kernel keeps the
-chip ring buffer in VMEM across the 64-tap shifted-MAC loop.
-
-All kernels have jnp reference implementations (the default pipeline path);
-equivalence is property-tested in interpret mode on CPU and the TPU default
-is chosen by measurement (bench.py --pallas).
+One kernel remains: the fused dual-tone FSK front end
+(:mod:`sondetpu.pallas.dualtone`, Pallas through Triton, compiled for a
+GPU). The jnp path in runtime/pipeline.py is its reference and the default
+everywhere else; tests run the kernel in the Pallas interpreter.
 """
-
-from sondetpu.pallas.frontend import (
-    fused_demod_fir, fused_frontend, frontend_chunk, fast_atan2)
-from sondetpu.pallas.corr import corr_kernel
-
-__all__ = ["fused_demod_fir", "fused_frontend",
-           "frontend_chunk", "fast_atan2", "corr_kernel"]

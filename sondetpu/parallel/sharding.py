@@ -2,7 +2,7 @@
 
 Channel parallelism: the pipeline state and IQ blocks carry their channel
 axis sharded over the mesh ('chip'); the jitted step then runs SPMD with no
-collectives (channels are independent — the TPU analogue of the reference's
+collectives (channels are independent — the device analogue of the reference's
 "one module instance per sonde", main.cpp:23).
 
 Time/sequence parallelism: long streams split into time blocks across
@@ -69,7 +69,7 @@ def shard_channels(tree: Any, mesh: Mesh, axis="chip") -> Any:
     multiproc = jax.process_count() > 1
 
     def put(leaf):
-        sh = NamedSharding(mesh, channel_spec(leaf, axis))
+        sh = channel_sharding(leaf, mesh, axis)
         if multiproc and not isinstance(leaf, jax.Array):
             SHARD_STATS["host_uploads"] += 1
             arr = np.asarray(leaf)
@@ -91,6 +91,25 @@ def shard_channels(tree: Any, mesh: Mesh, axis="chip") -> Any:
     return jax.tree.map(put, tree)
 
 
+def channel_sharding(leaf: Any, mesh: Mesh, axis="chip") -> NamedSharding:
+    """The layout shard_channels gives a leaf: leading (channel) axis over
+    ``axis`` when it divides the mesh, replicated otherwise."""
+    n = mesh.devices.size
+    s = np.shape(leaf)
+    if len(s) and s[0] >= n and s[0] % n == 0:
+        return NamedSharding(mesh, channel_spec(leaf, axis))
+    return NamedSharding(mesh, P())
+
+
+def constrain_channels(tree: Any, mesh: Mesh, axis="chip") -> Any:
+    """Inside a jitted step: pin every leaf of a carried state to
+    channel_sharding, so the next step is handed the layout it was
+    compiled for (left to GSPMD, the returned state comes back in another
+    layout and the second step compiles again)."""
+    return jax.tree.map(lambda x: jax.lax.with_sharding_constraint(
+        x, channel_sharding(x, mesh, axis)), tree)
+
+
 def sharded_pipeline_step(pipeline, mesh: Mesh, axis=None):
     """Compile the pipeline step with channel-sharded inputs/outputs.
 
@@ -103,7 +122,8 @@ def sharded_pipeline_step(pipeline, mesh: Mesh, axis=None):
         axis = mesh_channel_axes(mesh)
 
     def step(state, iq_i, iq_q):
-        return pipeline._step_impl(state, iq_i, iq_q)
+        state, out = pipeline._step_impl(state, iq_i, iq_q)
+        return constrain_channels(state, mesh, axis), out
 
     # shardings are inferred from the annotated inputs; outputs follow
     step_fn = jax.jit(step)

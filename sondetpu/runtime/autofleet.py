@@ -57,7 +57,7 @@ class AutoFleet:
                  sync_threshold: float = 0.55, probe_blocks: int = 2,
                  drop_idle_blocks: int = 0, on_update=None,
                  on_change=None, compute_dtype: str = "f32",
-                 afc: bool = False, use_pallas: bool = False):
+                 afc: bool = False, use_pallas=None):
         self.n_bins = n_bins
         self.fs_chan = fs_chan
         self.fs_wide = n_bins * fs_chan

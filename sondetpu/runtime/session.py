@@ -35,7 +35,8 @@ class DecoderSession:
         # callers that already hold a compiled Pipeline for this config
         # (bench.py's decode verification) reuse it instead of paying a
         # second construction + device-state allocation
-        self.pipeline = pipeline if pipeline is not None else Pipeline(config)
+        self.pipeline = (pipeline if pipeline is not None
+                         else Pipeline(config, mesh=mesh))
         self.state = self.pipeline.init_state()
         # multi-chip: shard the channel axis of state + IQ over the mesh and
         # run the step SPMD (SURVEY.md §2.4 channel parallelism). Channels

@@ -57,7 +57,7 @@ MIN_PACKET_BITS = 140                 # PTU: 14 bytes x 10 bits
 
 # ECC ozonesonde conversion (PROTOCOLS.md imet4): P_O3[mPa] =
 # 4.307e-3 * I_cell[uA] * T_pump[K] * t_pump[s], nominal pump time assumed
-O3_K, O3_TPUMP = 4.307e-3, 28.0
+O3_K, O3_T_PUMP = 4.307e-3, 28.0
 
 
 def uart_bits(data: bytes) -> np.ndarray:
@@ -118,7 +118,7 @@ def parse_xdata_ozone(xdata: str) -> Optional[float]:
         tp_ck = int(xdata[8:12], 16)          # pump temperature, 0.01 K
     except ValueError:
         return None
-    return O3_K * (i_na / 1000.0) * (tp_ck / 100.0) * O3_TPUMP
+    return O3_K * (i_na / 1000.0) * (tp_ck / 100.0) * O3_T_PUMP
 
 
 class IMET4Decoder(SondeDecoderBase):
@@ -261,7 +261,7 @@ class IMET4Modulator:
 
     def build_xdata(self, t: IMET4Truth) -> bytes:
         tp_k = 300.0
-        i_ua = (t.o3_mpa or 0.0) / (O3_K * tp_k * O3_TPUMP)
+        i_ua = (t.o3_mpa or 0.0) / (O3_K * tp_k * O3_T_PUMP)
         x = "0501%04X%04X" % (int(round(i_ua * 1000)) & 0xFFFF,
                               int(round(tp_k * 100)) & 0xFFFF)
         body = bytes([SOH, PKT_XDATA, len(x)]) + x.encode("ascii")

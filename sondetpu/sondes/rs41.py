@@ -370,8 +370,8 @@ class RS41Decoder(SondeDecoderBase):
         All fixed-offset integer fields and the geodesy math are computed as
         NumPy column operations; the only per-frame Python work left is the
         stateful calibration-page accumulation and fragment assembly
-        (~10x faster than per-frame struct.unpack parsing — the host parse
-        rate bounds end-to-end channels/chip)."""
+        (rather than per-frame struct.unpack parsing — the host parse rate
+        can bound end-to-end channels per card)."""
         off = {typ: pos for typ, pos, _ in offsets}
         n = fr.shape[0]
 

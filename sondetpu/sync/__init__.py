@@ -1,6 +1,6 @@
 """Symbol timing recovery, frame synchronization, and line coding.
 
-TPU-native re-design of sondedump's shared decode machinery (SURVEY.md S0):
+Accelerator-native re-design of sondedump's shared decode machinery (SURVEY.md S0):
 Gardner timing recovery is provided as a per-channel scan (classic,
 sequential-in-time) while the production path uses the feed-forward
 Oerder-Meyr estimator which vectorizes fully; the frame-sync correlator and

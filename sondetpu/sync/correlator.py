@@ -2,7 +2,7 @@
 
 Batched re-design of sondedump's frame-sync correlator (SURVEY.md S0,
 BASELINE.json:5 "frame-sync correlator"). Soft symbols are correlated
-against the +/-1 syncword template with a batched convolution (MXU-friendly);
+against the +/-1 syncword template with a batched convolution;
 peaks are selected with an iterative argmax + neighborhood-suppression loop
 of static depth; frames are gathered at the peak offsets into fixed-capacity
 slots with a validity mask (SURVEY.md §7 "ragged outputs" strategy), keeping
@@ -42,9 +42,9 @@ def find_frame_starts(corr: jax.Array, threshold: float, max_peaks: int,
 
     Two-level search: a max pass reduces the full correlation to per-half-
     window block candidates, then the iterative argmax + +/-``min_distance``
-    suppression loop runs on the tiny candidate set. 2x faster than
-    suppressing on the full array (each suppression round re-reads the
-    whole [C, n] buffer). The TOP-2 of each block are kept as candidates:
+    suppression loop runs on the tiny candidate set, instead of
+    suppressing on the full array (each suppression round would re-read
+    the whole [C, n] buffer). The TOP-2 of each block are kept as candidates:
     with only the block max, a peak could be shadowed by a larger
     same-block value that was itself suppressed by a third, even larger
     peak — the runner-up covers that single-shadow case (deeper shadowing
@@ -103,11 +103,10 @@ def gather_frames(stream: jax.Array, starts: jax.Array, ok: jax.Array,
         # exceeding the operand), so short streams return empty directly
         return jnp.zeros((c, k, frame_len), stream.dtype), valid & False
     safe = jnp.clip(starts, 0, max(n - frame_len, 0))
-    # ONE contiguous slice per (channel, slot) via lax.gather slice_sizes —
-    # element gathers (take_along_axis) cost ~4 ns/elem on v5e, which at
-    # fleet scale made this the biphase/chase families' dominant stage
-    # (3.5M elements/block for the m10 group); the slice form is ~3x
-    # cheaper (same finding as the nrz byte-gather in runtime/pipeline.py)
+    # ONE contiguous slice per (channel, slot) via lax.gather slice_sizes
+    # rather than an element gather (take_along_axis): at fleet scale the
+    # m10 group gathers 3.5M elements per block, and a slice per slot moves
+    # them as contiguous runs
     rows = jnp.broadcast_to(jnp.arange(c, dtype=jnp.int32)[:, None], (c, k))
     idx = jnp.stack([rows, safe.astype(jnp.int32)], axis=-1).reshape(c * k, 2)
     frames = jax.lax.gather(

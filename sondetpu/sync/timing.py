@@ -7,7 +7,7 @@ BASELINE.json:5 "Gardner symbol-timing recovery"):
    Feed-forward square-law timing estimation (Oerder & Meyr 1988): the
    symbol-rate spectral line of ``x**2`` gives the timing phase for a whole
    block in one reduction, which vectorizes perfectly over channels and time
-   on the VPU — the idiomatic TPU answer to a feedback PLL. A per-channel
+   — the idiomatic data-parallel answer to a feedback PLL. A per-channel
    NCO carry keeps the symbol grid continuous across blocks (slew-limited
    correction toward each block's estimate), so chunked processing tracks
    clock drift without dropping/duplicating symbols at block boundaries.
@@ -59,8 +59,8 @@ def oerder_meyr_tau(x: jax.Array, sps: float) -> jax.Array:
     idx = jnp.arange(n, dtype=jnp.float32)
     w = 2.0 * jnp.pi * idx / sps
     sq = x.astype(jnp.float32) ** 2
-    # real-only form of sum(sq * exp(-j*w)): some TPU backends cannot run
-    # complex programs, and two real reductions fuse better anyway
+    # real-only form of sum(sq * exp(-j*w)): two real reductions that fuse
+    # with the squaring
     cr = jnp.sum(sq * jnp.cos(w), axis=-1)
     ci = -jnp.sum(sq * jnp.sin(w), axis=-1)
     tau = -jnp.arctan2(ci, cr) / (2.0 * jnp.pi) * sps

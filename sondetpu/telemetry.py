@@ -151,8 +151,8 @@ class SondeTelemetry:
         return f != 0
 
     def snapshot(self) -> "SondeTelemetry":
-        """Cheap copy for update fan-out (~5x faster than
-        dataclasses.replace, which re-runs __init__ field processing)."""
+        """Cheap copy for update fan-out (dataclasses.replace would re-run
+        __init__ field processing)."""
         s = SondeTelemetry.__new__(SondeTelemetry)
         s.__dict__.update(self.__dict__)
         return s

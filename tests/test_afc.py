@@ -65,13 +65,13 @@ def test_afc_state_checkpoints(tmp_path):
 
 
 def test_afc_config_gates():
-    # afc + use_pallas coexist since r5 (the kernels export the DC /
-    # rotation sums); bf16 + pallas remains unsupported
-    cfg = PipelineConfig(sonde="rs41", channels=8, afc=True, use_pallas=True)
+    # afc + the dual-tone kernel coexist (the kernel exports the rotation
+    # sums AFC feeds on), in bf16 too; the kernel serves no NRZ family
+    cfg = PipelineConfig(sonde="m10", channels=8, afc=True, use_pallas=True,
+                         compute_dtype="bf16")
     assert cfg.afc and cfg.use_pallas
     with pytest.raises(ValueError):
-        PipelineConfig(sonde="rs41", channels=8, use_pallas=True,
-                       compute_dtype="bf16")
+        PipelineConfig(sonde="rs41", channels=8, afc=True, use_pallas=True)
 
 
 def test_afc_tracks_drifting_afsk_imet4():

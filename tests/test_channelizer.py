@@ -5,7 +5,10 @@ import numpy as np
 import pytest
 import jax
 
-from sondetpu.dsp.channelizer import PFBChannelizer
+import jax.numpy as jnp
+
+from sondetpu.dsp.channelizer import (PFBChannelizer, _dft_axis0,
+                                      _dft_axis_last, reference_channelize)
 
 
 def _chan(pfb, state, iq):
@@ -108,7 +111,7 @@ def test_wideband_to_rs41_decode():
 
 
 def test_factorized_dft_matches_direct():
-    """The mixed-radix MXU DFT (n > 64 path) equals the direct DFT matrix."""
+    """The mixed-radix DFT (n > 64 path) equals the direct DFT matrix."""
     from sondetpu.dsp.channelizer import _dft_axis0
 
     rng = np.random.default_rng(1)
@@ -135,3 +138,65 @@ def test_large_pfb_tone_lands_in_its_channel():
         _, yi, yq = _chan(pfb, st, iq)
         power = (np.asarray(yi) ** 2 + np.asarray(yq) ** 2).mean(axis=1)
         assert power.argmax() == k, (k, power.argmax())
+
+
+def _rel_rms(y, ref):
+    return np.sqrt(np.mean(np.abs(y - ref) ** 2) / np.mean(np.abs(ref) ** 2))
+
+
+# relative RMS error vs float64: the CPU computes float32 exactly (the
+# card's TF32 bound lives in chip_smoke.py); bf16 stores every FIR/DFT
+# stage in bf16 (2^-8 relative rounding per stage)
+PFB_TOL = {"f32": 2e-6, "bf16": 1.5e-2}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048])
+def test_pfb_matches_float64_reference(n, dtype):
+    """The XLA PFB (slice-sum FIR + mixed-radix DFT) against the plain
+    float64 NumPy channelizer, from a zero-history stream."""
+    pfb = PFBChannelizer(n, dtype=dtype)
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=n * 48) + 1j * rng.normal(size=n * 48)
+    _, yi, yq = pfb(pfb.init_state(), x.real.astype(np.float32),
+                    x.imag.astype(np.float32))
+    y = np.asarray(yi, np.float64) + 1j * np.asarray(yq, np.float64)
+    assert y.shape == (n, 48)
+    assert _rel_rms(y, reference_channelize(pfb._hbank, x)) < PFB_TOL[dtype]
+
+
+def test_pfb_carry_matches_reference_over_blocks():
+    """Three blocks through the carried tail equal the reference over the
+    whole stream (the tail is the reference's history)."""
+    n, m = 128, 40
+    pfb = PFBChannelizer(n)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=3 * n * m) + 1j * rng.normal(size=3 * n * m)
+    ref = reference_channelize(pfb._hbank, x)
+    st = pfb.init_state()
+    got = []
+    for b in range(3):
+        blk = x[b * n * m:(b + 1) * n * m]
+        st, yi, yq = pfb(st, blk.real.astype(np.float32),
+                         blk.imag.astype(np.float32))
+        got.append(np.asarray(yi, np.float64) + 1j * np.asarray(yq))
+    assert _rel_rms(np.concatenate(got, axis=1), ref) < PFB_TOL["f32"]
+
+
+def test_axis_last_dft_matches_axis0_with_sign_flip():
+    """Feeding the branch-reversed (mod n) array to the axis-last DFT with
+    the OPPOSITE sign must reproduce _dft_axis0's +j convention — the
+    identity the channelizer's zero-cost permutation rests on."""
+    rng = np.random.default_rng(7)
+    for n in (16, 64, 256):
+        u = rng.normal(size=(n, 40)).astype(np.float32)
+        v = rng.normal(size=(n, 40)).astype(np.float32)
+        ref_i, ref_q = _dft_axis0(jnp.asarray(u), jnp.asarray(v), sign=1.0)
+        perm = np.zeros(n, np.int64)
+        perm[1:] = n - np.arange(1, n)
+        got_i, got_q = _dft_axis_last(jnp.asarray(u[perm].T),
+                                      jnp.asarray(v[perm].T), sign=-1.0)
+        np.testing.assert_allclose(np.asarray(got_i.T), np.asarray(ref_i),
+                                   atol=2e-3)
+        np.testing.assert_allclose(np.asarray(got_q.T), np.asarray(ref_q),
+                                   atol=2e-3)

@@ -1,9 +1,8 @@
 """Blocked-Toeplitz MXU convolution (dsp/fir.py::_conv1d_mxu) equivalence.
 
-The TPU pipeline lowers its 41-tap channel/matched filters and the 64-chip
-syncword correlation through this path (depthwise convs land on the VPU;
-the Toeplitz matmul rides the MXU). CPU tests call it explicitly since the
-auto-gate in _conv1d keeps CPU on the depthwise conv.
+An alternative lowering of the 41-tap channel/matched filters and the
+64-chip syncword correlation as two matmuls per block; the pipeline keeps
+the depthwise conv, so these tests call it explicitly.
 """
 
 import numpy as np

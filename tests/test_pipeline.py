@@ -233,7 +233,12 @@ def test_bf16_block_size_invariance():
 
 
 def test_bf16_rejects_afsk_and_pallas():
+    # bf16 is refused for AFSK alone; the kernel knob is refused for every
+    # family it cannot serve, whatever the dtype, and accepted in bf16 for
+    # the dual-tone families
     with pytest.raises(ValueError):
         PipelineConfig(sonde="imet4", compute_dtype="bf16")
     with pytest.raises(ValueError):
         PipelineConfig(sonde="rs41", compute_dtype="bf16", use_pallas=True)
+    assert PipelineConfig(sonde="m10", compute_dtype="bf16",
+                          use_pallas=True).use_pallas

@@ -1,6 +1,7 @@
 """Timing recovery, correlator, and line-coding tests."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from sondetpu.sync import (
@@ -185,3 +186,20 @@ def test_gather_frames_block_shorter_than_frame():
     frames, valid = gather_frames(stream, starts, ok, 64)
     assert frames.shape == (2, 3, 64)
     assert not bool(valid.any())
+
+
+@pytest.mark.parametrize("length,dtype", [(64, "float32"), (48, "bfloat16")])
+def test_correlate_syncword_matches_np_correlate(length, dtype):
+    """correlate_syncword (the grouped conv, normalized by the template
+    length) equals np.correlate in 'valid' mode row by row."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(length)
+    soft = rng.normal(size=(6, 700)).astype(np.float32)
+    tmpl = rng.choice([-1.0, 1.0], size=length).astype(np.float32)
+    x = jnp.asarray(soft, dtype)
+    got = np.asarray(correlate_syncword(x, tmpl))
+    xs = np.asarray(x.astype(jnp.float32), np.float64)
+    want = np.stack([np.correlate(r, tmpl, "valid") for r in xs]) / length
+    assert got.shape == want.shape == (6, 700 - length + 1)
+    np.testing.assert_allclose(got, want, atol=1e-5)
